@@ -1,13 +1,12 @@
-"""AlignNet-3D TPU: a TPU-native JAX framework for fast point-cloud registration.
+"""AlignNet-3D in JAX: fast point-cloud registration on a GPU.
 
 A ground-up rebuild of the capabilities of grossjohannes/AlignNet-3D
-(3DV 2019, arXiv:1910.04668) designed for TPU hardware:
+(3DV 2019, arXiv:1910.04668):
 
 - jax/XLA compute path: the Siamese PointNet encoder is expressed as large
-  batched matmuls that tile onto the MXU; per-sample rotations are batched
-  einsums; everything is jit-compiled with static shapes.
-- Pallas kernels for the fused per-point-MLP + max-reduce hot path
-  (``alignnet3d_tpu.ops.pointnet_kernels``), behind a flag with an XLA fallback.
+  batched matmuls; per-sample rotations are batched einsums; everything is
+  jit-compiled with static shapes. No hand-written kernels: XLA's own
+  fusions and library matmuls run every op.
 - SPMD parallelism via ``jax.sharding.Mesh`` + jit shardings
   (``alignnet3d_tpu.parallel``): data parallelism over a ``dp`` axis and
   tensor parallelism of the wide embedding layers over ``mp``. The reference

@@ -6,7 +6,7 @@ module provides the programmatic serving surface:
     from alignnet3d_tpu.api import Aligner
 
     aligner = Aligner.from_checkpoint("runs/SynthCars/config.json",
-                                      "runs/SynthCars/model-199.msgpack")
+                                      "runs/SynthCars/model-199.npz")
     result = aligner.align(list_of_pc1, list_of_pc2, refine_icp=True)
     result["translations"], result["angles"], result["centers"]
 
@@ -90,8 +90,8 @@ class Aligner:
     @classmethod
     def from_checkpoint(cls, config_path: str, checkpoint_path: str,
                         **kwargs) -> "Aligner":
-        """Load from a run's config.json + a model-*.msgpack snapshot."""
-        import flax.serialization
+        """Load from a run's config.json + a model-*.npz snapshot."""
+        from alignnet3d_tpu.training.state import TrainState, load_tree
 
         with open(config_path) as f:
             cfg = config_from_dict(json.load(f))
@@ -103,15 +103,13 @@ class Aligner:
              "dropout": jax.random.PRNGKey(1)},
             dummy, dummy, train=False,
         )
-        with open(checkpoint_path, "rb") as f:
-            blob = f.read()
-        # checkpoints store the full TrainState; accept either layout
-        state = flax.serialization.msgpack_restore(blob)
-        if "params" in state:
-            variables = {
-                "params": state["params"],
-                "batch_stats": state["batch_stats"],
-            }
+        # checkpoints store the full TrainState; read only what serving
+        # needs (no optimizer moments)
+        state = load_tree(checkpoint_path, TrainState(
+            step=None, params=variables["params"],
+            batch_stats=variables["batch_stats"], opt_state=None))
+        variables = {"params": state.params,
+                     "batch_stats": state.batch_stats}
         scale = bool(
             cfg.evaluation.has("scale_residuals")
             and cfg.evaluation.scale_residuals

@@ -45,6 +45,10 @@ def main(argv=None):
 
     multihost.maybe_initialize()
 
+    from alignnet3d_tpu.utils import setup_compile_cache
+
+    setup_compile_cache()
+
     from alignnet3d_tpu.config import load_config
 
     cfg = load_config(flags.config)

@@ -9,7 +9,8 @@ experiment configs load unchanged (paths aside). Derived fields
 Additions over the reference schema (all optional, defaulted in
 ``configs/default.json``):
 
-- ``tpu.*`` — compute/parallelism knobs (dtype, pallas, mesh axes).
+- ``tpu.*`` — compute/parallelism knobs (dtype, mesh axes); the name is
+  historical.
 - ``training.loss.options.inverted_angle_mode`` — 'reference_max' keeps the
   reference's tf.cond quirk that selects the *larger* of the two losses when
   ``accept_inverted_angle`` is set (reference models/tp8.py:288); 'min'

@@ -1,6 +1,6 @@
 """Fast Global Registration, batched on-device.
 
-TPU-native implementation of the algorithm behind the reference's
+On-device implementation of the algorithm behind the reference's
 ``icp_o3_gicp_fast`` variant (reference icp.py:121-143, which calls the
 Open3D fork's ``registration_fast_based_on_feature_matching`` with the
 fork-only constrained option): Zhou, Park & Koltun, "Fast Global
@@ -42,6 +42,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from alignnet3d_tpu.icp.p2point import (
+    HIGHEST,
     _estimate_full,
     _estimate_yaw_translation,
 )
@@ -55,7 +56,8 @@ def _mutual_correspondences(feat_src, mask_src, feat_dst, mask_dst):
     """
     d2 = (
         jnp.sum(feat_src ** 2, axis=1)[:, None]
-        - 2.0 * feat_src @ feat_dst.T
+        # HIGHEST: fed to argmin; TF32 would flip near-tied matches
+        - 2.0 * jnp.matmul(feat_src, feat_dst.T, precision=HIGHEST)
         + jnp.sum(feat_dst ** 2, axis=1)[None, :]
     )
     d2 = jnp.where(mask_src[:, None], d2, jnp.inf)
@@ -122,7 +124,7 @@ def _fgr_single(src, src_mask, dst, dst_mask, feat_src, feat_dst, rng_key,
 
     def body(carry, it):
         R, t, mu = carry
-        moved = src @ R.T + t
+        moved = jnp.matmul(src, R.T, precision=HIGHEST) + t
         r2 = jnp.sum((moved - q_all) ** 2, axis=1)
         l = (mu / (mu + r2)) ** 2
         w = base_w * l
@@ -133,8 +135,8 @@ def _fgr_single(src, src_mask, dst, dst_mask, feat_src, feat_dst, rng_key,
         has = jnp.sum(w) > 1e-9
         R_inc = jnp.where(has, R_inc, jnp.eye(3))
         t_inc = jnp.where(has, t_inc, jnp.zeros(3))
-        R_new = R_inc @ R
-        t_new = R_inc @ t + t_inc
+        R_new = jnp.matmul(R_inc, R, precision=HIGHEST)
+        t_new = jnp.matmul(R_inc, t, precision=HIGHEST) + t_inc
         # graduated non-convexity schedule: anneal every 4 iterations
         mu = jnp.where((it + 1) % 4 == 0, mu / division_factor, mu)
         mu = jnp.maximum(mu, distance_threshold * distance_threshold)
@@ -145,7 +147,7 @@ def _fgr_single(src, src_mask, dst, dst_mask, feat_src, feat_dst, rng_key,
     )
 
     # final inlier stats over the kept correspondence set
-    moved = src @ R.T + t
+    moved = jnp.matmul(src, R.T, precision=HIGHEST) + t
     err2 = jnp.sum((moved - q_all) ** 2, axis=1)
     inlier = base_w * (err2 < distance_threshold ** 2)
     n_in = jnp.sum(inlier)

@@ -33,6 +33,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from alignnet3d_tpu.icp.p2point import (
+    HIGHEST,
     _estimate_full,
     _estimate_yaw_translation,
 )
@@ -63,7 +64,8 @@ def _knn_indices(points, mask, k):
     """(N, k) nearest-neighbor indices among valid points (self included)."""
     d2 = (
         jnp.sum(points ** 2, axis=1)[:, None]
-        - 2.0 * points @ points.T
+        # HIGHEST: ranked by top_k; TF32 would flip near-tied neighbours
+        - 2.0 * jnp.matmul(points, points.T, precision=HIGHEST)
         + jnp.sum(points ** 2, axis=1)[None, :]
     )
     d2 = jnp.where(mask[None, :], d2, jnp.inf)
@@ -151,7 +153,8 @@ def _feature_correspondences(feat_src, mask_src, feat_dst, mask_dst):
     """Nearest-neighbor in feature space for each src point (index, valid)."""
     d2 = (
         jnp.sum(feat_src ** 2, axis=1)[:, None]
-        - 2.0 * feat_src @ feat_dst.T
+        # HIGHEST: fed to argmin; TF32 would flip near-tied matches
+        - 2.0 * jnp.matmul(feat_src, feat_dst.T, precision=HIGHEST)
         + jnp.sum(feat_dst ** 2, axis=1)[None, :]
     )
     d2 = jnp.where(mask_dst[None, :], d2, jnp.inf)
@@ -209,7 +212,7 @@ def ransac_registration(src, src_mask, dst, dst_mask, src_feat, dst_feat,
             R, t = _estimate_yaw_translation(p, q, w)
         else:
             R, t = _estimate_full(p, q, w)
-        moved = src @ R.T + t
+        moved = jnp.matmul(src, R.T, precision=HIGHEST) + t
         err = jnp.linalg.norm(moved - dst_corr, axis=1)
         inlier = corr_valid & (err < distance_threshold)
         score = jnp.where(ratio_ok, jnp.sum(inlier), -1.0)
@@ -246,7 +249,7 @@ def ransac_registration(src, src_mask, dst, dst_mask, src_feat, dst_feat,
     best = jnp.argmax(scores)
     R, t = Rs[best], ts[best]
     # final inlier stats
-    moved = src @ R.T + t
+    moved = jnp.matmul(src, R.T, precision=HIGHEST) + t
     err = jnp.linalg.norm(moved - dst_corr, axis=1)
     inlier = (corr_valid & (err < distance_threshold)).astype(jnp.float32)
     n_in = jnp.sum(inlier)

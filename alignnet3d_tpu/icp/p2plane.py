@@ -9,14 +9,14 @@ point-to-point on locally planar LiDAR scans (car panels): sliding
 along a panel is free, so sparse resampling of the same surface stops
 fighting the estimate. This targets the <2 cm accuracy bucket.
 
-TPU-native design, mirroring icp/p2point.py:
+Design, mirroring icp/p2point.py:
 - normals are estimated ONCE per destination cloud from the k-NN
   covariance; the smallest-eigenvector is extracted by power iteration
   on ``tr(C) I − C`` (same eigenvectors, spectrum reversed) — branch-free
-  VPU work instead of a batched ``eigh`` (no orientation step: the
+  elementwise work instead of a batched ``eigh`` (no orientation step: the
   point-to-plane cost is sign-invariant in the normal).
-- each iteration: brute-force NN correspondences (shared with p2point —
-  matmul workload on the MXU), radius gate, then a CLOSED-FORM 3x3
+- each iteration: brute-force NN correspondences (shared with p2point,
+  at HIGHEST precision), radius gate, then a CLOSED-FORM 3x3
   normal-equation solve for the ground-plane-constrained increment
   (yaw theta about the weighted source centroid + XY translation),
   linearized per iteration exactly like Open3D's Gauss-Newton step but
@@ -35,7 +35,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from alignnet3d_tpu.icp.p2point import _nn_correspondences
+from alignnet3d_tpu.icp.p2point import (
+    HIGHEST,
+    _center_pair,
+    _nn_correspondences,
+    _uncenter,
+)
 
 KNN_CHUNK = 512
 _INVALID = 1e30
@@ -50,11 +55,16 @@ def _knn_covariance_normals(points, mask, k: int):
     but finite residual that the radius gate bounds)."""
     n = points.shape[0]
     invalid = jnp.where(mask, 0.0, _INVALID)  # (n,)
+    # normals do not move with the cloud; centring keeps the expanded
+    # distances precise at range (icp/p2point.py _center_pair)
+    w = mask.astype(points.dtype)
+    points = points - (jnp.sum(points * w[:, None], axis=0)
+                       / jnp.maximum(jnp.sum(w), 1.0))
 
     def chunk_fn(chunk):
         d2 = (
             jnp.sum(chunk ** 2, axis=1)[:, None]
-            - 2.0 * chunk @ points.T
+            - 2.0 * jnp.matmul(chunk, points.T, precision=HIGHEST)
             + jnp.sum(points ** 2, axis=1)[None, :]
         )
         d2 = jnp.maximum(d2, 0.0) + invalid[None, :]
@@ -127,10 +137,10 @@ def _estimate_yaw_translation_p2plane(p, q, nrm, w):
     # Levenberg-style damping relative to the system scale: a sparse or
     # single-panel correspondence set leaves (theta, t) directions
     # near-unobservable, and an undamped solve can jump kilometers
-    H = Aw.T @ A
+    H = jnp.matmul(Aw.T, A, precision=HIGHEST)
     tr_h = jnp.trace(H)
     H = H + (1e-6 * tr_h + 1e-9) * jnp.eye(4)
-    g = Aw.T @ r
+    g = jnp.matmul(Aw.T, r, precision=HIGHEST)
     x = jnp.linalg.solve(H, -g)
     # trust region per iteration: ICP increments near a valid basin are
     # small; anything larger is divergence, not progress
@@ -143,17 +153,18 @@ def _estimate_yaw_translation_p2plane(p, q, nrm, w):
     R = jnp.eye(3)
     R = R.at[0, 0].set(c).at[0, 1].set(-s).at[1, 0].set(s).at[1, 1].set(c)
     # rotation was taken about p_bar: fold into a world-frame transform
-    t = p_bar - R @ p_bar + x[1:]
+    t = p_bar - jnp.matmul(R, p_bar, precision=HIGHEST) + x[1:]
     return R, t
 
 
 def _icp_single_p2plane(src, src_mask, dst, dst_mask, dst_normals, init_R,
                         init_t, radius, its):
     radius2 = radius * radius
+    src, dst, init_t, c = _center_pair(src, dst, dst_mask, init_R, init_t)
 
     def body(carry, _):
         R, t = carry
-        moved = src @ R.T + t
+        moved = jnp.matmul(src, R.T, precision=HIGHEST) + t
         idx, d2 = _nn_correspondences(moved, dst, dst_mask)
         w = (src_mask & (d2 < radius2)).astype(jnp.float32)
         q = dst[idx]
@@ -162,17 +173,18 @@ def _icp_single_p2plane(src, src_mask, dst, dst_mask, dst_normals, init_R,
         has = jnp.sum(w) > 0
         R_inc = jnp.where(has, R_inc, jnp.eye(3))
         t_inc = jnp.where(has, t_inc, jnp.zeros(3))
-        return (R_inc @ R, R_inc @ t + t_inc), None
+        return (jnp.matmul(R_inc, R, precision=HIGHEST),
+                jnp.matmul(R_inc, t, precision=HIGHEST) + t_inc), None
 
     (R, t), _ = jax.lax.scan(body, (init_R, init_t), None, length=its)
-    moved = src @ R.T + t
+    moved = jnp.matmul(src, R.T, precision=HIGHEST) + t
     idx, d2 = _nn_correspondences(moved, dst, dst_mask)
     inlier = (src_mask & (d2 < radius2)).astype(jnp.float32)
     n_src = jnp.maximum(jnp.sum(src_mask.astype(jnp.float32)), 1.0)
     n_in = jnp.sum(inlier)
     fitness = n_in / n_src
     inlier_rmse = jnp.sqrt(jnp.sum(inlier * d2) / jnp.maximum(n_in, 1.0))
-    return R, t, fitness, inlier_rmse
+    return R, _uncenter(R, t, c), fitness, inlier_rmse
 
 
 @partial(jax.jit, static_argnums=(8,))

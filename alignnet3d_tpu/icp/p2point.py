@@ -1,6 +1,6 @@
 """Batched on-device ICP with the ground-plane constraint.
 
-TPU-native replacement for the reference's per-sample CPU calls into a
+On-device replacement for the reference's per-sample CPU calls into a
 forked Open3D C++ library (reference icp.py:69-143; the fork adds a
 ``with_constraint`` flag that restricts the estimated motion to yaw +
 translation, cf. the Python port ICP.constrain_transform,
@@ -9,13 +9,17 @@ pointcloud.py:1208-1254).
 Design:
 - the WHOLE val set of cloud pairs runs as a vmapped batch on device; each
   iteration is: brute-force nearest neighbor (chunked (B, n1, n2) distance
-  matrix -> argmin, a pure-matmul workload that tiles onto the MXU),
+  matrix -> argmin, a pure-matmul workload),
   radius-gated correspondences, then a CLOSED-FORM weighted yaw+translation
   update (no SVD needed under the constraint; the unconstrained variant
   uses a 3x3 Kabsch SVD).
 - fixed iteration count + masking keeps every shape static for XLA.
 - clouds are padded to a common length with mask weights; padded points
   never become correspondences.
+- every product whose result is index-valued (the distances fed to argmin)
+  or moves a whole cloud runs at HIGHEST precision: a TF32 product keeps
+  about three decimal digits, which flips near-tied correspondences and
+  moves a point 20 m out by millimetres.
 
 This inverts the reference's cost model: instead of ~1k sequential C++
 calls at ~ms each, one jit launch aligns the entire set.
@@ -32,20 +36,12 @@ import numpy as np
 from alignnet3d_tpu.geometry import get_mat_angle
 
 NN_CHUNK = 512
+HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def _nn_correspondences(src, dst, dst_mask):
     """For each src point: index + squared distance of nearest valid dst
-    point. Chunked over src to bound the (chunk, n2) distance matrix.
-
-    On the TPU backend this routes to the fused Pallas kernel
-    (ops/nn_kernels.py) — measured 1.05-1.5x over the XLA path, which
-    round-trips each distance-matrix chunk through HBM between the
-    matmul and the argmin."""
-    if jax.default_backend() == "tpu":
-        from alignnet3d_tpu.ops.nn_kernels import nn_argmin_pallas
-
-        return nn_argmin_pallas(src, dst, dst_mask)
+    point. Chunked over src to bound the (chunk, n2) distance matrix."""
     n1 = src.shape[0]
     d2_invalid = jnp.where(dst_mask, 0.0, jnp.inf)  # (n2,)
 
@@ -53,7 +49,7 @@ def _nn_correspondences(src, dst, dst_mask):
         # (c, n2) squared distances via |a|^2 - 2ab + |b|^2
         d2 = (
             jnp.sum(chunk ** 2, axis=1)[:, None]
-            - 2.0 * chunk @ dst.T
+            - 2.0 * jnp.matmul(chunk, dst.T, precision=HIGHEST)
             + jnp.sum(dst ** 2, axis=1)[None, :]
         )
         # |a-b|^2 via expansion can go slightly negative at convergence —
@@ -67,6 +63,26 @@ def _nn_correspondences(src, dst, dst_mask):
     chunks = src_p.reshape(-1, NN_CHUNK, 3)
     idx, d2 = jax.lax.map(chunk_fn, chunks)
     return idx.reshape(-1)[:n1], d2.reshape(-1)[:n1]
+
+
+def _center_pair(src, dst, dst_mask, init_R, init_t):
+    """Shift a pair so that the valid dst points' centroid is the origin.
+
+    The expanded distance |a|^2 - 2ab + |b|^2 loses float32 precision
+    with |a|^2: a point 20 m out carries 400 m^2, so its squared distances
+    are good to about 2e-5 m^2 — enough to flip neighbours and the radius
+    gate, and to make two backends' ICP runs drift millimetres apart.
+    Returns the shifted clouds, the initial translation in the shifted
+    frame and the shift ``c``; a transform (R, t) found there is
+    (R, t + c - R c) in the original frame."""
+    w = dst_mask.astype(jnp.float32)
+    c = jnp.sum(dst * w[:, None], axis=0) / jnp.maximum(jnp.sum(w), 1.0)
+    t0 = init_t + jnp.matmul(init_R, c, precision=HIGHEST) - c
+    return src - c, dst - c, t0, c
+
+
+def _uncenter(R, t, c):
+    return t + c - jnp.matmul(R, c, precision=HIGHEST)
 
 
 def _estimate_yaw_translation(p, q, w):
@@ -83,7 +99,7 @@ def _estimate_yaw_translation(p, q, w):
     c, s = jnp.cos(yaw), jnp.sin(yaw)
     R = jnp.array([[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0]])
     R = R.at[0, 0].set(c).at[0, 1].set(-s).at[1, 0].set(s).at[1, 1].set(c)
-    t = q_bar - R @ p_bar
+    t = q_bar - jnp.matmul(R, p_bar, precision=HIGHEST)
     return R, t
 
 
@@ -92,12 +108,14 @@ def _estimate_full(p, q, w):
     wsum = jnp.maximum(jnp.sum(w), 1e-12)
     p_bar = jnp.sum(w[:, None] * p, axis=0) / wsum
     q_bar = jnp.sum(w[:, None] * q, axis=0) / wsum
-    H = ((p - p_bar) * w[:, None]).T @ (q - q_bar)
+    H = jnp.matmul(((p - p_bar) * w[:, None]).T, q - q_bar,
+                   precision=HIGHEST)
     U, _, Vt = jnp.linalg.svd(H)
     d = jnp.sign(jnp.linalg.det(Vt.T @ U.T))
     D = jnp.diag(jnp.array([1.0, 1.0, 1.0])).at[2, 2].set(d)
-    R = Vt.T @ D @ U.T
-    t = q_bar - R @ p_bar
+    R = jnp.matmul(jnp.matmul(Vt.T, D, precision=HIGHEST), U.T,
+                   precision=HIGHEST)
+    t = q_bar - jnp.matmul(R, p_bar, precision=HIGHEST)
     return R, t
 
 
@@ -106,10 +124,11 @@ def _icp_single(src, src_mask, dst, dst_mask, init_R, init_t, radius, its,
     """Run `its` ICP iterations for one padded pair. Returns (R, t, fitness,
     inlier_rmse)."""
     radius2 = radius * radius
+    src, dst, init_t, c = _center_pair(src, dst, dst_mask, init_R, init_t)
 
     def body(carry, _):
         R, t = carry
-        moved = src @ R.T + t
+        moved = jnp.matmul(src, R.T, precision=HIGHEST) + t
         idx, d2 = _nn_correspondences(moved, dst, dst_mask)
         w = (src_mask & (d2 < radius2)).astype(jnp.float32)
         q = dst[idx]
@@ -121,19 +140,20 @@ def _icp_single(src, src_mask, dst, dst_mask, init_R, init_t, radius, its,
         has = jnp.sum(w) > 0
         R_inc = jnp.where(has, R_inc, jnp.eye(3))
         t_inc = jnp.where(has, t_inc, jnp.zeros(3))
-        R_new = R_inc @ R
-        t_new = R_inc @ t + t_inc
+        # composing in TF32 would drift the transform over the iterations
+        R_new = jnp.matmul(R_inc, R, precision=HIGHEST)
+        t_new = jnp.matmul(R_inc, t, precision=HIGHEST) + t_inc
         return (R_new, t_new), None
 
     (R, t), _ = jax.lax.scan(body, (init_R, init_t), None, length=its)
-    moved = src @ R.T + t
+    moved = jnp.matmul(src, R.T, precision=HIGHEST) + t
     idx, d2 = _nn_correspondences(moved, dst, dst_mask)
     inlier = (src_mask & (d2 < radius2)).astype(jnp.float32)
     n_src = jnp.maximum(jnp.sum(src_mask.astype(jnp.float32)), 1.0)
     n_in = jnp.sum(inlier)
     fitness = n_in / n_src
     inlier_rmse = jnp.sqrt(jnp.sum(inlier * d2) / jnp.maximum(n_in, 1.0))
-    return R, t, fitness, inlier_rmse
+    return R, _uncenter(R, t, c), fitness, inlier_rmse
 
 
 from functools import partial
@@ -334,7 +354,7 @@ def multistart_global_registration(src, src_mask, dst, dst_mask,
                                    radius: float = 0.1):
     """Initialization-free registration via parallel yaw multi-start.
 
-    TPU-native replacement for the reference's FPFH + RANSAC / FGR global
+    On-device replacement for the reference's FPFH + RANSAC / FGR global
     registration (icp.py:85-143): K yaw hypotheses around the centroid
     translation run coarse constrained ICP in parallel (one batched launch);
     the hypothesis with the best inlier RMSE wins and is refined. Rather

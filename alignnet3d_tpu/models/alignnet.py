@@ -6,16 +6,17 @@ between the two clouds is automatic here — a single ``EmbeddingNet``
 submodule applied to both inputs (the reference uses
 ``tf.variable_scope('siamese', reuse=AUTO_REUSE)``, tp8.py:140-143).
 
-TPU-first choices:
+Design choices:
 - every per-point op is a batched dense matmul (see backbones.py);
 - the per-sample stage-2 de-rotation is ONE batched einsum over (B,3,3)
   rotation matrices instead of the reference's ``tf.map_fn`` (tp8.py:125);
 - both clouds run through the shared encoder in a single fused call by
-  stacking them on the batch axis (2B effective batch), which doubles MXU
-  utilization per step and keeps BN statistics identical to the reference's
-  twin-tower graph (both towers share the same BN moving stats; with
-  stacking, train-time batch stats are computed over both clouds at once —
-  the one intentional difference, noted in ``stack_siamese``).
+  stacking them on the batch axis (2B effective batch), which doubles the
+  rows of every matmul per step and keeps BN statistics identical to the
+  reference's twin-tower graph (both towers share the same BN moving
+  stats; with stacking, train-time batch stats are computed over both
+  clouds at once — the one intentional difference, noted in
+  ``stack_siamese``).
 """
 
 from __future__ import annotations
@@ -23,12 +24,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Sequence
 
-import flax.linen as nn
-import jax
 import jax.numpy as jnp
 import numpy as np
 
-from alignnet3d_tpu.models.backbones import MLPHead, make_backbone
+from alignnet3d_tpu.models.backbones import (
+    BACKBONE_NAMES,
+    MLPHead,
+    make_backbone,
+)
+from alignnet3d_tpu.models.layers import Module, Scope
 from alignnet3d_tpu.ops.angle_codec import logits_to_angle
 from alignnet3d_tpu.ops.transforms import rotate_points_z
 
@@ -51,25 +55,15 @@ class ModelSpec:
     remaining_mlp: Sequence[int] = (512, 256)
     remaining_dropout_keep: float = 0.7
     compute_dtype: str = "float32"
-    # TPU-native approximate kNN for the dgcnn graph (lax.approx_max_k,
-    # ops/knn.py) — off by default: exact reference semantics
+    # approximate kNN for the dgcnn graph (lax.approx_max_k, ops/knn.py)
+    # — off by default: exact reference semantics
     dgcnn_approx_knn: bool = False
-    # exact-kNN backend: 'xla' (default, proven) | 'pallas' (fused kernel,
-    # opt in after an on-chip win — see scripts/onchip_smoke.py)
-    dgcnn_knn_impl: str = "pallas"
-    # Fused Pallas training edge stage (ops/edge_train_kernels.py) —
-    # OFF until an on-chip record lands (docs/onchip_smoke.json);
-    # opt in via model.options.dgcnn_fused_train
-    dgcnn_fused_train: bool = False
-    # DECIDED round 5 (docs/stable_max_onchip.json): stays OFF — the
-    # XLA max-VJP drop is CPU-backend-specific; on TPU jit plain-max
-    # and jit stable-max gradients are bit-identical (pointnet) /
-    # 0.11% rel-L2 (dgcnn). Flag remains for CPU-backend training.
     # Remat-stable max-pool gradient routing (ops/stable_max.py): works
-    # around XLA's reduce_max VJP dropping cotangents under jit (round-5
-    # finding, tests/test_stable_max.py). Forward values identical; the
-    # training gradient routes to the first argmax slot. Opt in via
-    # model.options.stable_max_grad until an on-chip A/B lands.
+    # around XLA's reduce_max VJP dropping cotangents under jit on the
+    # CPU backend (tests/test_stable_max.py). Forward values identical;
+    # the training gradient routes to the first argmax slot. Opt in via
+    # model.options.stable_max_grad; chip_smoke.py measures whether the
+    # GPU backend needs it.
     stable_max_grad: bool = False
     # Per-view canonical shape-completion decoder (framework addition,
     # 0 = off = reference semantics). When > 0, each view's embedding
@@ -105,13 +99,6 @@ class ModelSpec:
             dgcnn_approx_knn=bool(
                 opts.has("dgcnn_approx_knn") and opts.dgcnn_approx_knn
             ),
-            dgcnn_knn_impl=(
-                str(opts.dgcnn_knn_impl)
-                if opts.has("dgcnn_knn_impl") else "pallas"
-            ),
-            dgcnn_fused_train=bool(
-                opts.has("dgcnn_fused_train") and opts.dgcnn_fused_train
-            ),
             stable_max_grad=bool(
                 opts.has("stable_max_grad") and opts.stable_max_grad
             ),
@@ -126,7 +113,8 @@ class ModelSpec:
         return jnp.dtype(self.compute_dtype)
 
 
-class TransformerNet(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class TransformerNet(Module):
     """Backbone -> flatten -> MLP head (reference get_transformer_net,
     tp8.py:89-98). Head width is 3 (+ 2*num_bins when predicting angles)."""
 
@@ -136,24 +124,24 @@ class TransformerNet(nn.Module):
     dropout_keep: float
     with_angles: bool
 
-    @nn.compact
-    def __call__(self, points, train, momentum):
+    def __call__(self, scope: Scope, points, train, momentum):
+        spec = self.spec
         feat = make_backbone(
-            self.spec.backbone, self.backbone_sizes, self.spec.dtype,
-            approx_knn=self.spec.dgcnn_approx_knn,
-            knn_impl=self.spec.dgcnn_knn_impl,
-            fused_train=self.spec.dgcnn_fused_train,
-            stable_max_grad=self.spec.stable_max_grad,
-        )(points, train, momentum)
-        head_width = 3 + (2 * self.spec.num_bins if self.with_angles else 0)
+            spec.backbone, self.backbone_sizes, spec.dtype,
+            approx_knn=spec.dgcnn_approx_knn,
+            stable_max_grad=spec.stable_max_grad,
+        )(scope.child(BACKBONE_NAMES[spec.backbone]), points, train,
+          momentum)
+        head_width = 3 + (2 * spec.num_bins if self.with_angles else 0)
         return MLPHead(
             layer_sizes=tuple(self.mlp_sizes) + (head_width,),
             dropout_keep=self.dropout_keep,
-            dtype=self.spec.dtype,
-        )(feat, train, momentum)
+            dtype=spec.dtype,
+        )(scope.child("MLPHead_0"), feat, train, momentum)
 
 
-class EmbeddingNet(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class EmbeddingNet(Module):
     """3-stage canonicalizer + final embedding (reference get_embedding_net,
     tp8.py:101-132):
 
@@ -164,23 +152,22 @@ class EmbeddingNet(nn.Module):
 
     spec: ModelSpec
 
-    @nn.compact
-    def __call__(self, points, train, momentum):
+    def __call__(self, scope: Scope, points, train, momentum):
         spec = self.spec
         center_mean = jnp.mean(points, axis=1)  # (B, 3)
         centered = points - center_mean[:, None, :]
 
         s1_delta = TransformerNet(
             spec, spec.s1_backbone, spec.s1_mlp, spec.s1_dropout_keep,
-            with_angles=False, name="transformer1",
-        )(centered, train, momentum)
+            with_angles=False,
+        )(scope.child("transformer1"), centered, train, momentum)
         s1_center = s1_delta + center_mean
 
         centered_s1 = points - s1_center[:, None, :]
         s2_out = TransformerNet(
             spec, spec.s2_backbone, spec.s2_mlp, spec.s2_dropout_keep,
-            with_angles=True, name="transformer2",
-        )(centered_s1, train, momentum)
+            with_angles=True,
+        )(scope.child("transformer2"), centered_s1, train, momentum)
         s2_center = s2_out[:, :3] + s1_center
         s2_angle_logits = s2_out[:, 3:]
 
@@ -197,10 +184,9 @@ class EmbeddingNet(nn.Module):
         embedding = make_backbone(
             spec.backbone, spec.embedding, spec.dtype,
             approx_knn=spec.dgcnn_approx_knn,
-            knn_impl=spec.dgcnn_knn_impl,
-            fused_train=spec.dgcnn_fused_train,
             stable_max_grad=spec.stable_max_grad,
-        )(normalized, train, momentum)
+        )(scope.child(BACKBONE_NAMES[spec.backbone]), normalized, train,
+          momentum)
 
         completion = None
         if spec.completion_points > 0:
@@ -213,15 +199,15 @@ class EmbeddingNet(nn.Module):
                 layer_sizes=(256, 3 * m),
                 dropout_keep=None,
                 dtype=spec.dtype,
-                name="completion",
-            )(embedding, train, momentum)
+            )(scope.child("completion"), embedding, train, momentum)
             completion = comp.reshape(comp.shape[0], m, 3)
 
         return (embedding, center_mean, s1_center, s2_center,
                 s2_angle_logits, completion)
 
 
-class AlignNet(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class AlignNet(Module):
     """Siamese relative-pose network (reference get_model, tp8.py:135-158).
 
     Returns the reference's ``end_points`` dict:
@@ -232,15 +218,16 @@ class AlignNet(nn.Module):
 
     spec: ModelSpec
 
-    @nn.compact
-    def __call__(self, pcs1, pcs2, train: bool, momentum=0.9):
+    def __call__(self, scope: Scope, pcs1, pcs2, train: bool, momentum=0.9):
         spec = self.spec
-        encoder = EmbeddingNet(spec, name="siamese")
+        encoder = EmbeddingNet(spec)
+        enc_scope = scope.child("siamese")
 
         if spec.stack_siamese:
             b = pcs1.shape[0]
             stacked = jnp.concatenate([pcs1, pcs2], axis=0)
-            emb, cm, s1c, s2c, s2logits, comp = encoder(stacked, train, momentum)
+            emb, cm, s1c, s2c, s2logits, comp = encoder(
+                enc_scope, stacked, train, momentum)
             emb1, emb2 = emb[:b], emb[b:]
             s1_center1, s1_center2 = s1c[:b], s1c[b:]
             s2_center1, s2_center2 = s2c[:b], s2c[b:]
@@ -248,18 +235,16 @@ class AlignNet(nn.Module):
             comp1, comp2 = (comp[:b], comp[b:]) if comp is not None else (None, None)
         else:
             emb1, _, s1_center1, s2_center1, logits1, comp1 = encoder(
-                pcs1, train, momentum)
+                enc_scope, pcs1, train, momentum)
             emb2, _, s1_center2, s2_center2, logits2, comp2 = encoder(
-                pcs2, train, momentum)
+                enc_scope, pcs2, train, momentum)
 
         combined = jnp.concatenate([emb1, emb2], axis=-1)
         head = MLPHead(
             layer_sizes=tuple(spec.remaining_mlp) + (3 + 2 * spec.num_bins,),
             dropout_keep=spec.remaining_dropout_keep,
             dtype=spec.dtype,
-            name="remaining",
-        )(combined, train, momentum)
-
+        )(scope.child("remaining"), combined, train, momentum)
         out = head.astype(jnp.float32)
         end_points = {
             "pred_s1_pc1centers": s1_center1.astype(jnp.float32),

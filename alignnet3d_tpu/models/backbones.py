@@ -1,26 +1,23 @@
-"""Point-cloud encoder backbones, TPU-first.
+"""Point-cloud encoder backbones.
 
 The reference implements its per-point "shared MLP" as 1xC conv2d stacks
 (models/tp8.py:49-59) and DGCNN edge convs (tp8.py:30-46,
-utils/tf_util_dgcnn.py:638-706). On TPU every one of those is a dense layer
-over the channel axis: a ``(B*N, C) @ (C, F)`` matmul that XLA tiles onto
-the MXU, fused with bias/BN/ReLU. The N-wide maxpool is a single
-``jnp.max`` over the point axis.
-
-An optional Pallas kernel fuses the whole pointnet stage
-(``alignnet3d_tpu.ops.pointnet_kernels``); the XLA path is the default and
-the numerical reference.
+utils/tf_util_dgcnn.py:638-706). Here every one of those is a dense layer
+over the channel axis: a ``(B*N, C) @ (C, F)`` matmul, fused by XLA with
+bias/BN/ReLU. The N-wide maxpool is a single ``jnp.max`` over the point
+axis.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import dataclasses
+from typing import Any, Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 
-from alignnet3d_tpu.models.batchnorm import EmaBatchNorm
+from alignnet3d_tpu.models.batchnorm import batch_norm
+from alignnet3d_tpu.models.layers import Module, Scope, dense, dropout
 
 
 def _pool(stable: bool):
@@ -36,20 +33,8 @@ def _pool(stable: bool):
     return jnp.max
 
 
-def _dense(features: int, dtype, name: str | None = None) -> nn.Dense:
-    # xavier-uniform kernels + zero bias match the reference init
-    # (tf_util.py:24-49: xavier_initializer, constant 0 biases).
-    return nn.Dense(
-        features,
-        kernel_init=nn.initializers.xavier_uniform(),
-        bias_init=nn.initializers.zeros,
-        dtype=dtype,
-        param_dtype=jnp.float32,
-        name=name,
-    )
-
-
-class PointNetBackbone(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class PointNetBackbone(Module):
     """Per-point shared-MLP stack + symmetric max over points.
 
     Equivalent of reference ``_get_pointnet`` (tp8.py:49-59): each listed
@@ -58,71 +43,26 @@ class PointNetBackbone(nn.Module):
     """
 
     layer_sizes: Sequence[int]
-    dtype: jnp.dtype = jnp.float32
+    dtype: Any = jnp.float32
     # remat-stable max-grad routing (ops/stable_max.py — XLA's reduce_max
-    # VJP can drop cotangents under jit, round-5 finding). Train-graph
-    # only; forward values are identical.
+    # VJP can drop cotangents under jit). Train-graph only; forward values
+    # are identical.
     stable_max_grad: bool = False
 
-    @nn.compact
-    def __call__(self, points: jax.Array, train: bool, momentum) -> jax.Array:
+    def __call__(self, scope: Scope, points: jax.Array, train: bool,
+                 momentum) -> jax.Array:
         pool = _pool(self.stable_max_grad and train)
         x = points.astype(self.dtype)
         for i, width in enumerate(self.layer_sizes):
-            x = _dense(width, self.dtype, name=f"conv{i + 1}")(x)
-            x = EmaBatchNorm(dtype=self.dtype, name=f"bn{i + 1}")(x, train, momentum)
-            x = nn.relu(x)
+            x = dense(scope.child(f"conv{i + 1}"), x, width, self.dtype)
+            x = batch_norm(scope.child(f"bn{i + 1}"), x, train, momentum,
+                           self.dtype)
+            x = jax.nn.relu(x)
         return pool(x, 1)
 
 
-class _DenseParams(nn.Module):
-    """Parameter-tree-compatible stand-in for ``_dense``: declares the
-    SAME (kernel, bias) leaves under the same module name, but returns
-    them instead of applying — the fused training kernel consumes them
-    directly. Initializers match _dense (xavier_uniform / zeros), so a
-    fresh init is bit-identical whichever path is active."""
-
-    features: int
-    in_features: int
-
-    @nn.compact
-    def __call__(self):
-        kernel = self.param("kernel", nn.initializers.xavier_uniform(),
-                            (self.in_features, self.features), jnp.float32)
-        bias = self.param("bias", nn.initializers.zeros,
-                          (self.features,), jnp.float32)
-        return kernel, bias
-
-
-class _BNParams(nn.Module):
-    """Parameter/variable-compatible stand-in for ``EmaBatchNorm``:
-    same (scale, bias) params and (mean, var) batch_stats leaves. The
-    first call returns the affine params; a second call with the fused
-    kernel's batch statistics applies the EMA update exactly as
-    batchnorm.py does (``ema = m*ema + (1-m)*batch``)."""
-
-    features: int
-
-    @nn.compact
-    def __call__(self, batch_mean=None, batch_var=None, momentum=None):
-        scale = self.param("scale", nn.initializers.ones,
-                           (self.features,), jnp.float32)
-        bias = self.param("bias", nn.initializers.zeros,
-                          (self.features,), jnp.float32)
-        ra_mean = self.variable(
-            "batch_stats", "mean",
-            lambda: jnp.zeros((self.features,), jnp.float32))
-        ra_var = self.variable(
-            "batch_stats", "var",
-            lambda: jnp.ones((self.features,), jnp.float32))
-        if batch_mean is not None and not self.is_initializing():
-            m = jnp.asarray(momentum, jnp.float32)
-            ra_mean.value = m * ra_mean.value + (1.0 - m) * batch_mean
-            ra_var.value = m * ra_var.value + (1.0 - m) * batch_var
-        return scale, bias
-
-
-class DGCNNBackbone(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class DGCNNBackbone(Module):
     """Dynamic-graph edge-conv stack (reference ``_get_dgcnn``, tp8.py:30-46).
 
     knn on the raw xyz pairwise distances (k=20, tf_util_dgcnn.py:660-671),
@@ -135,32 +75,14 @@ class DGCNNBackbone(nn.Module):
 
     layer_sizes: Sequence[int]
     k: int = 20
-    dtype: jnp.dtype = jnp.float32
-    # TPU-native approximate top-k for the graph (ops/knn.py)
+    dtype: Any = jnp.float32
+    # approximate top-k for the graph (lax.approx_max_k, ops/knn.py)
     approx_knn: bool = False
-    # exact-kNN implementation: 'pallas' (fused VMEM-resident kernel,
-    # ops/knn_kernels.py — TPU default since the on-chip record showed
-    # exact equality on 3 shapes incl. non-tile-multiple N and a 1.7x
-    # win at tm=128: 5.6 ms vs 9.7 ms XLA at B=128 N=512 k=20,
-    # docs/onchip_smoke.json + scripts/bench_dgcnn.py) or 'xla'
-    # (lax.top_k on the batched distance matmul — the escape hatch,
-    # model.options.dgcnn_knn_impl = "xla"). The pallas path only
-    # engages on the TPU backend; elsewhere it falls back to XLA.
-    # Ignored when approx_knn is set.
-    knn_impl: str = "pallas"
-    # Fused Pallas TRAINING edge stage (ops/edge_train_kernels.py):
-    # exact batch-stat BN + full custom VJP, no (B, N, k, *) HBM
-    # tensors. OFF by default pending an on-chip record
-    # (docs/onchip_smoke.json); enable via
-    # model.options.dgcnn_fused_train. Train-mode only (eval keeps the
-    # XLA graph with running stats); requires exactly two edge layers
-    # (all shipped configs). Param tree is identical either way.
-    fused_train: bool = False
     # remat-stable max-grad routing (ops/stable_max.py), train-graph only
     stable_max_grad: bool = False
 
-    @nn.compact
-    def __call__(self, points: jax.Array, train: bool, momentum) -> jax.Array:
+    def __call__(self, scope: Scope, points: jax.Array, train: bool,
+                 momentum) -> jax.Array:
         assert len(self.layer_sizes) >= 2, "dgcnn needs >= 2 layers"
         pool = _pool(self.stable_max_grad and train)
         from alignnet3d_tpu.ops.knn import (
@@ -170,84 +92,48 @@ class DGCNNBackbone(nn.Module):
         )
 
         x = points.astype(self.dtype)
-        b, n, _ = x.shape
-        k = min(self.k, n)
-        # Graph build runs in f32 on BOTH implementations so the neighbor
-        # graph is backend-independent even under bf16 compute dtype
-        # (near-tie distances would otherwise differ across paths).
+        k = min(self.k, x.shape[1])
+        # The graph is built in f32 (at HIGHEST, ops/knn.py) whatever the
+        # compute dtype, so the neighbour set does not depend on it.
+        # The graph is non-differentiable, as in the reference.
         xg = jax.lax.stop_gradient(x.astype(jnp.float32))
-        if (self.knn_impl == "pallas" and not self.approx_knn
-                and jax.default_backend() == "tpu"):
-            # fused Pallas kNN: distance tiles never leave VMEM
-            # (ops/knn_kernels.py; exact top_k semantics). stop_gradient
-            # keeps AD out of the integer-valued kernel — the graph
-            # structure is non-differentiable in the reference too.
-            from alignnet3d_tpu.ops.knn_kernels import knn_points_pallas
-
-            nn_idx = knn_points_pallas(xg, k)
-        else:
-            nn_idx = knn(pairwise_distance(xg), k,
-                         approximate=self.approx_knn)
-
-        if self.fused_train and train and len(self.layer_sizes) == 3:
-            from alignnet3d_tpu.ops.edge_train_kernels import (
-                fused_edge_stage_train,
-            )
-
-            c1w, c2w = self.layer_sizes[0], self.layer_sizes[1]
-            conv1 = _DenseParams(c1w, 2 * x.shape[-1], name="conv1")
-            bn1 = _BNParams(c1w, name="bn1")
-            conv2 = _DenseParams(c2w, c1w, name="conv2")
-            bn2 = _BNParams(c2w, name="bn2")
-            k1, b1 = conv1()
-            g1, be1 = bn1()
-            k2, b2 = conv2()
-            g2, be2 = bn2()
-            out, (mu1, var1, mu2, var2) = fused_edge_stage_train(
-                x, nn_idx, k1, b1, g1, be1, k2, b2, g2, be2,
-            )
-            bn1(mu1, var1, momentum)
-            bn2(mu2, var2, momentum)
-            h = out.astype(self.dtype)
-            i = len(self.layer_sizes) - 1
-            h = _dense(self.layer_sizes[-1], self.dtype,
-                       name=f"conv{i + 1}")(h)
-            h = EmaBatchNorm(dtype=self.dtype,
-                             name=f"bn{i + 1}")(h, train, momentum)
-            h = nn.relu(h)
-            return pool(h, 1)
+        nn_idx = knn(pairwise_distance(xg), k, approximate=self.approx_knn)
 
         # First edge conv via the linear split (docs/DESIGN.md §4b-ii):
         # conv1 is linear in the edge feature [x_i, x_j - x_i], so
         #   conv1(edge_ij) = P x_i + Q (x_j - x_i) + b = U_i + V_j - b
         # with U = conv1([x, -x]) and V = conv1([0, x]). U and V are two
         # tiny (B, N, C)-matmuls; the (B, N, k, 2C) edge tensor and the
-        # MXU-pessimal k-expanded conv1 matmul (contraction dim 2C=6)
-        # never materialize — only V's rows are gathered. Exact same
-        # math and the SAME param tree (conv1 keeps its (2C, C1) kernel;
-        # flax shares params across the three calls), so checkpoints,
-        # BN batch stats, and autodiff are unchanged
+        # k-expanded conv1 matmul (contraction dim 2C=6) never
+        # materialize — only V's rows are gathered. Same math and the
+        # same param tree (conv1 keeps its (2C, C1) kernel), so
+        # checkpoints, BN batch stats, and autodiff are unchanged
         # (tests/test_model.py::test_dgcnn_edge_linear_split_parity).
-        conv1 = _dense(self.layer_sizes[0], self.dtype, name="conv1")
-        u = conv1(jnp.concatenate([x, -x], axis=-1))
-        v = conv1(jnp.concatenate([jnp.zeros_like(x), x], axis=-1))
-        bias1 = conv1(jnp.zeros((1, 1, 2 * x.shape[-1]), x.dtype))
-        h = u[:, :, None, :] + gather_rows(v, nn_idx) - bias1[:, :, None, :]
-        h = EmaBatchNorm(dtype=self.dtype, name="bn1")(h, train, momentum)
-        h = nn.relu(h)
+        conv1 = scope.child("conv1")
+        u = dense(conv1, jnp.concatenate([x, -x], axis=-1),
+                  self.layer_sizes[0], self.dtype)
+        v = dense(conv1, jnp.concatenate([jnp.zeros_like(x), x], axis=-1),
+                  self.layer_sizes[0], self.dtype)
+        bias1 = conv1.params["bias"].astype(self.dtype)
+        h = u[:, :, None, :] + gather_rows(v, nn_idx) - bias1
+        h = batch_norm(scope.child("bn1"), h, train, momentum, self.dtype)
+        h = jax.nn.relu(h)
         for i, width in enumerate(self.layer_sizes[1:-1], start=1):
-            h = _dense(width, self.dtype, name=f"conv{i + 1}")(h)
-            h = EmaBatchNorm(dtype=self.dtype, name=f"bn{i + 1}")(h, train, momentum)
-            h = nn.relu(h)
+            h = dense(scope.child(f"conv{i + 1}"), h, width, self.dtype)
+            h = batch_norm(scope.child(f"bn{i + 1}"), h, train, momentum,
+                           self.dtype)
+            h = jax.nn.relu(h)
         h = pool(h, 2)  # max over neighbors -> (B, N, F)
-        i = len(self.layer_sizes) - 1
-        h = _dense(self.layer_sizes[-1], self.dtype, name=f"conv{i + 1}")(h)
-        h = EmaBatchNorm(dtype=self.dtype, name=f"bn{i + 1}")(h, train, momentum)
-        h = nn.relu(h)
+        i = len(self.layer_sizes)
+        h = dense(scope.child(f"conv{i}"), h, self.layer_sizes[-1],
+                  self.dtype)
+        h = batch_norm(scope.child(f"bn{i}"), h, train, momentum, self.dtype)
+        h = jax.nn.relu(h)
         return pool(h, 1)
 
 
-class MLPHead(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class MLPHead(Module):
     """FC stack with BN+ReLU on all but the last layer, dropout before the
     final linear layer (reference ``get_mlp``, tp8.py:75-82).
 
@@ -257,32 +143,37 @@ class MLPHead(nn.Module):
 
     layer_sizes: Sequence[int]
     dropout_keep: float | None = None
-    dtype: jnp.dtype = jnp.float32
+    dtype: Any = jnp.float32
 
-    @nn.compact
-    def __call__(self, x: jax.Array, train: bool, momentum) -> jax.Array:
+    def __call__(self, scope: Scope, x: jax.Array, train: bool,
+                 momentum) -> jax.Array:
         x = x.astype(self.dtype)
         for i, width in enumerate(self.layer_sizes[:-1]):
-            x = _dense(width, self.dtype, name=f"fc{i + 1}")(x)
-            x = EmaBatchNorm(dtype=self.dtype, name=f"bn{i + 1}")(x, train, momentum)
-            x = nn.relu(x)
+            x = dense(scope.child(f"fc{i + 1}"), x, width, self.dtype)
+            x = batch_norm(scope.child(f"bn{i + 1}"), x, train, momentum,
+                           self.dtype)
+            x = jax.nn.relu(x)
         if self.dropout_keep is not None:
-            x = nn.Dropout(rate=1.0 - self.dropout_keep, deterministic=not train)(x)
-        x = _dense(self.layer_sizes[-1], self.dtype, name=f"fc{len(self.layer_sizes)}")(x)
-        return x
+            x = dropout(scope, x, 1.0 - self.dropout_keep,
+                        deterministic=not train)
+        n = len(self.layer_sizes)
+        return dense(scope.child(f"fc{n}"), x, self.layer_sizes[-1],
+                     self.dtype)
+
+
+# variable-tree name of each backbone's subtree
+BACKBONE_NAMES = {"pointnet": "PointNetBackbone_0",
+                  "dgcnn": "DGCNNBackbone_0"}
 
 
 def make_backbone(backbone: str, layer_sizes: Sequence[int], dtype,
                   approx_knn: bool = False,
-                  knn_impl: str = "xla",
-                  fused_train: bool = False,
-                  stable_max_grad: bool = False) -> nn.Module:
+                  stable_max_grad: bool = False) -> Module:
     if backbone == "pointnet":
         return PointNetBackbone(layer_sizes=tuple(layer_sizes), dtype=dtype,
                                 stable_max_grad=stable_max_grad)
     if backbone == "dgcnn":
         return DGCNNBackbone(layer_sizes=tuple(layer_sizes), dtype=dtype,
-                             approx_knn=approx_knn, knn_impl=knn_impl,
-                             fused_train=fused_train,
+                             approx_knn=approx_knn,
                              stable_max_grad=stable_max_grad)
     raise ValueError(f"unknown backbone {backbone!r}")

@@ -1,7 +1,7 @@
 """Batch normalization with the reference's EMA-with-scheduled-decay
 semantics (reference utils/tf_util.py:455-492, train.py:159-174).
 
-Differences from standard flax BatchNorm that matter for parity:
+Differences from a textbook BatchNorm that matter for parity:
 
 - In training, activations are normalized with the CURRENT batch statistics
   (the reference's ``mean_var_with_update``), never the running average.
@@ -21,43 +21,48 @@ is below float32 noise.
 
 from __future__ import annotations
 
-import flax.linen as nn
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 
+from alignnet3d_tpu.models.layers import Module, Scope, ones, zeros
 
-class EmaBatchNorm(nn.Module):
-    """BatchNorm over all axes but the last, with dynamic EMA momentum."""
+
+def batch_norm(scope: Scope, x: jax.Array, train: bool, momentum,
+               dtype=None, epsilon: float = 1e-3) -> jax.Array:
+    """BatchNorm over all axes but the last, with dynamic EMA momentum.
+    Variables: params ``scale``/``bias``, batch_stats ``mean``/``var``."""
+    features = x.shape[-1]
+    scale = scope.param("scale", ones, (features,))
+    bias = scope.param("bias", zeros, (features,))
+    ra_mean = scope.stat("mean", lambda: jnp.zeros((features,), jnp.float32))
+    ra_var = scope.stat("var", lambda: jnp.ones((features,), jnp.float32))
+
+    if train:
+        reduce_axes = tuple(range(x.ndim - 1))
+        xf = x.astype(jnp.float32)
+        mean = jnp.mean(xf, axis=reduce_axes)
+        # tf.nn.moments: biased variance estimate
+        var = jnp.mean(jnp.square(xf), axis=reduce_axes) - jnp.square(mean)
+        if not scope.initializing:
+            m = jnp.asarray(momentum, jnp.float32)
+            scope.set_stat("mean", m * ra_mean + (1.0 - m) * mean)
+            scope.set_stat("var", m * ra_var + (1.0 - m) * var)
+    else:
+        mean, var = ra_mean, ra_var
+
+    y = (x.astype(jnp.float32) - mean) * jax.lax.rsqrt(var + epsilon)
+    y = y * scale + bias
+    return y.astype(dtype or x.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class EmaBatchNorm(Module):
+    """``batch_norm`` as a stand-alone module."""
 
     epsilon: float = 1e-3
     dtype: jnp.dtype | None = None
 
-    @nn.compact
-    def __call__(self, x: jax.Array, train: bool, momentum: jax.Array):
-        features = x.shape[-1]
-        scale = self.param("scale", nn.initializers.ones, (features,), jnp.float32)
-        bias = self.param("bias", nn.initializers.zeros, (features,), jnp.float32)
-
-        ra_mean = self.variable(
-            "batch_stats", "mean", lambda: jnp.zeros((features,), jnp.float32)
-        )
-        ra_var = self.variable(
-            "batch_stats", "var", lambda: jnp.ones((features,), jnp.float32)
-        )
-
-        if train:
-            reduce_axes = tuple(range(x.ndim - 1))
-            xf = x.astype(jnp.float32)
-            mean = jnp.mean(xf, axis=reduce_axes)
-            # tf.nn.moments: biased variance estimate
-            var = jnp.mean(jnp.square(xf), axis=reduce_axes) - jnp.square(mean)
-            if not self.is_initializing():
-                m = jnp.asarray(momentum, jnp.float32)
-                ra_mean.value = m * ra_mean.value + (1.0 - m) * mean
-                ra_var.value = m * ra_var.value + (1.0 - m) * var
-        else:
-            mean, var = ra_mean.value, ra_var.value
-
-        y = (x.astype(jnp.float32) - mean) * jax.lax.rsqrt(var + self.epsilon)
-        y = y * scale + bias
-        return y.astype(self.dtype or x.dtype)
+    def __call__(self, scope: Scope, x: jax.Array, train: bool, momentum):
+        return batch_norm(scope, x, train, momentum, self.dtype, self.epsilon)

@@ -163,7 +163,7 @@ def _sq_chamfer(pred: jax.Array, target: jax.Array) -> jax.Array:
     """Symmetric squared chamfer per sample: (B, M, 3) vs (B, K, 3) -> (B,).
 
     Squared distances keep the gradient finite at zero; the (B, M, K)
-    matrix is one batched matmul (MXU) plus two row/col min-reductions.
+    matrix is one batched matmul plus two row/col min-reductions.
     The min-reductions route gradients via ``stable_min``: this loss is
     only ever differentiated, and jax 0.9.0's reduce_min VJP has the
     same remat cotangent-drop hazard as reduce_max (ops/stable_max.py).

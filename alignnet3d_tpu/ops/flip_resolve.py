@@ -22,17 +22,16 @@ from alignnet3d_tpu.ops.transforms import apply_rigid
 
 def _one_sided_chamfer(moved, target):
     """Mean over points of the nearest-neighbor distance (B,)."""
-    if jax.default_backend() == "tpu":
-        # fused Pallas NN reduction — the (B, N, N) distance matrix never
-        # leaves VMEM (ops/nn_kernels.py; 1.05-1.5x over the XLA path)
-        from alignnet3d_tpu.ops.nn_kernels import nn_argmin_pallas
-
-        mask = jnp.ones(target.shape[:2], bool)
-        _, d2 = jax.vmap(nn_argmin_pallas)(moved, target, mask)
-        return jnp.mean(jnp.sqrt(d2), axis=1)
+    # Centred on the target (the expanded distance loses float32
+    # precision with |a|^2 at range) and at HIGHEST: the two scores are
+    # compared per pair, and a TF32 product (about three decimal digits)
+    # can flip the decision on a near tie.
+    c = jnp.mean(target, axis=1, keepdims=True)
+    moved, target = moved - c, target - c
     d2 = (
         jnp.sum(moved ** 2, axis=-1)[:, :, None]
-        - 2.0 * jnp.einsum("bnd,bmd->bnm", moved, target)
+        - 2.0 * jnp.einsum("bnd,bmd->bnm", moved, target,
+                           precision=jax.lax.Precision.HIGHEST)
         + jnp.sum(target ** 2, axis=-1)[:, None, :]
     )
     return jnp.mean(jnp.sqrt(jnp.maximum(jnp.min(d2, axis=2), 0.0)), axis=1)

@@ -1,7 +1,7 @@
 """Dynamic-graph ops: pairwise distances, k-NN, edge features — the public
 API behind the DGCNN backbone (reference utils/tf_util_dgcnn.py:638-706).
 
-All batched: the (B, N, N) distance matrix is one matmul (MXU), top-k runs
+All batched: the (B, N, N) distance matrix is one matmul, top-k runs
 on device. Exposed standalone so custom models can compose them.
 """
 
@@ -17,7 +17,10 @@ def pairwise_distance(points: jax.Array) -> jax.Array:
     Sign convention matches the reference (tf_util_dgcnn.py:638-657):
     LARGER means closer, so ``top_k`` on the output selects neighbors.
     """
-    inner = jnp.einsum("bnd,bmd->bnm", points, points)
+    # HIGHEST: the result is ranked by top_k, and a TF32 product (about
+    # three decimal digits) would flip near-tied neighbours.
+    inner = jnp.einsum("bnd,bmd->bnm", points, points,
+                       precision=jax.lax.Precision.HIGHEST)
     sq = jnp.sum(jnp.square(points), axis=-1)
     return 2.0 * inner - sq[:, :, None] - sq[:, None, :]
 
@@ -27,12 +30,11 @@ def knn(neg_dist: jax.Array, k: int = 20,
     """Indices of the k nearest neighbors, shape (B, N, k)
     (reference tf_util_dgcnn.py:660-671).
 
-    ``approximate`` uses ``jax.lax.approx_max_k`` — the TPU-native
-    partial-reduction top-k (recall ~0.95 at default settings), much
-    cheaper than the exact sort-based ``top_k`` on the vector units.
-    Graph convs are robust to a slightly perturbed neighbor set; enable
-    via ``model.options.dgcnn_approx_knn`` (off by default — exact
-    reference semantics)."""
+    ``approximate`` uses ``jax.lax.approx_max_k``, a partial-reduction
+    top-k (recall ~0.95 at default settings). Graph convs are robust to a
+    slightly perturbed neighbor set; enable via
+    ``model.options.dgcnn_approx_knn`` (off by default — exact reference
+    semantics)."""
     if approximate:
         _, idx = jax.lax.approx_max_k(neg_dist, k)
         return idx
@@ -43,11 +45,10 @@ def knn(neg_dist: jax.Array, k: int = 20,
 def gather_rows(values: jax.Array, nn_idx: jax.Array) -> jax.Array:
     """Neighbor row lookup: (B, N, C) x (B, N, k) -> (B, N, k, C).
 
-    FLAT row gather over the merged (B*N) axis: measured on TPU v5e this
-    lowers ~8x faster than the equivalent ``take_along_axis`` (55.3 ->
-    6.9 ms at B=128/N=512/k=20 — XLA turns the batched take_along_axis
-    into a general gather with per-element index arithmetic, while a
-    flat ``jnp.take`` of whole rows becomes a simple DMA row copy).
+    FLAT row gather over the merged (B*N) axis: XLA lowers a batched
+    ``take_along_axis`` to a general gather with per-element index
+    arithmetic, while a flat ``jnp.take`` of whole rows is a plain row
+    copy.
     """
     b, n, c = values.shape
     kk = nn_idx.shape[-1]

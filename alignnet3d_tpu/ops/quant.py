@@ -1,18 +1,17 @@
 """Int8 quantized serving math for the folded point-MLP chains.
 
-STATUS: EXPERIMENTAL, measured and NOT adopted (round 4,
-docs/RESULTS.md "int8 ... REJECTED"): accuracy is within ±0.3 pt of
-f32 at every scope, but on the v5e the dynamic quantize/dequantize
-passes break the conv+BN fusion chain and COST 1.8-3.2x end-to-end
-throughput (112.2k -> 63.4k/34.7k pairs/s at B=8192). The serving
-default and bench stay bf16; this path remains for static-quant
-follow-ups (pre-calibrated scales would remove the per-batch passes).
+STATUS: EXPERIMENTAL and NOT adopted (docs/RESULTS.md "int8 ...
+REJECTED"): accuracy is within ±0.3 pt of f32 at every scope, but the
+dynamic quantize/dequantize passes break the conv+BN fusion chain and
+cost end-to-end throughput on the accelerator it was tried on; on the
+GPU it is unmeasured. The serving default and bench stay bf16; this path
+remains for static-quant follow-ups (pre-calibrated scales would remove
+the per-batch passes).
 
 No reference analogue (the reference serves the full TF training graph
-in f32, train.py:246-264). The original motivation: on TPU v5e the
-MXU's int8 path doubles the bf16 matmul rate AND halves the activation
-row traffic — and DESIGN.md §4b measured the folded forward as
-row-traffic-bound in its narrow early layers.
+in f32, train.py:246-264). The motivation: an int8 matmul path runs at
+twice the bf16 rate and halves the activation row traffic, and the
+folded forward's narrow early layers are row-traffic-bound.
 
 Scheme (standard dynamic quantization, chosen for zero calibration
 state):
@@ -61,7 +60,7 @@ def _dense_int8(h, wq, w_scale):
 
 
 def _dense_int8_nonneg(h, wq, w_scale):
-    """Unsigned 8-bit activations on the signed-int8 MXU, for KNOWN
+    """Unsigned 8-bit activations on a signed-int8 matmul, for KNOWN
     NONNEGATIVE rows (post-ReLU layers).
 
     Symmetric int8 on nonnegative data wastes the sign bit (effectively
@@ -87,7 +86,7 @@ def _dense_int8_nonneg(h, wq, w_scale):
 
 
 def fused_pointnet_int8(points, qweights, biases):
-    """Int8 twin of ``fused_pointnet_xla`` (ops/pointnet_kernels.py):
+    """Int8 twin of ``serving.fused_pointnet_xla``:
     relu-dense chain in dynamic int8 + f32 max over the point axis.
 
     The first layer sees signed inputs (raw/normalized coordinates) and

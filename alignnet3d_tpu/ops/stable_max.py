@@ -25,8 +25,7 @@ is no equality-against-recompute anywhere, so the failure mode under
 rematerialization degrades from "cotangent dropped" to "near-tie
 routed to the other near-equal slot" — a valid subgradient choice with
 bounded effect. Routing matches first-argmax semantics, the same
-convention as the fused training kernel (edge_train_kernels.py) and
-eager XLA at non-tied elements.
+convention as eager XLA at non-tied elements.
 
 Cost: one extra reduction pass (argmax) plus a fused select-sum in
 place of the single max — memory-bound epsilon next to the matmuls the

@@ -2,17 +2,16 @@
 
 The reference has zero parallelism machinery (SURVEY.md §2: single
 tf.Session on one GPU, dead ``is_dist`` BN flag). This module is the
-greenfield TPU-native replacement:
+greenfield replacement:
 
 - a 2-axis ``Mesh`` ``('dp', 'mp')``: data parallelism over ``dp`` (the
-  per-pair workload is embarrassingly parallel; gradient psum rides ICI),
-  tensor parallelism of the wide embedding layers over ``mp``;
+  per-pair workload is embarrassingly parallel; one gradient all-reduce
+  per step), tensor parallelism of the wide embedding layers over ``mp``;
 - shape-based partition rules applied uniformly to params, optimizer
   moments, and BN statistics, so one rule tree shards the whole TrainState;
-- jit with in/out shardings does the rest — XLA inserts the collectives.
-
-No NCCL/MPI analogue exists or is needed; XLA collectives over ICI are the
-communication backend.
+- jit with in/out shardings does the rest — XLA inserts the collectives,
+  which it runs through NCCL on GPUs. The cards of one host reach each
+  other at the same rate, so the mesh shape follows the algorithm alone.
 """
 
 from __future__ import annotations

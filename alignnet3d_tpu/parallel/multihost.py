@@ -9,8 +9,8 @@ for pod-scale training".
 Design (jax.distributed + the existing ('dp','mp') mesh):
 - every process runs the same Trainer; ``jax.distributed.initialize``
   connects them, after which ``jax.devices()`` is the GLOBAL device set
-  and the mesh spans hosts — XLA routes gradient psums over ICI within
-  a slice and DCN across slices, no NCCL/MPI analogue needed;
+  and the mesh spans hosts — XLA inserts the gradient all-reduce across
+  them (NCCL on GPUs);
 - the per-epoch shuffle derives from (seed, epoch) only, so every
   process agrees on the global batch order without communicating;
 - each process loads/resamples only its own rows of each global batch

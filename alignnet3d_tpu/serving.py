@@ -1,6 +1,6 @@
 """Serving path: BN-folded, fusion-friendly inference engine.
 
-Training uses the flax module with live batch-norm statistics; at serving
+Training uses the model with live batch-norm statistics; at serving
 time every BatchNorm is an affine map with frozen stats, so it folds into
 the preceding dense layer:
 
@@ -9,9 +9,9 @@ the preceding dense layer:
 
 (The reference cannot do this — its graph keeps the tf.cond BN at eval,
 utils/tf_util.py:488-491.) The folded encoder is then three pure
-relu-dense chains + max-pools per cloud, dispatched either through XLA or
-the fused Pallas kernel (ops/pointnet_kernels.py), plus the small MLP
-heads and the batched de-rotation einsum.
+relu-dense chains + max-pools per cloud (``fused_pointnet_xla``), plus the
+small MLP heads and the batched de-rotation einsum. DGCNN folds the same
+way into an exact-kNN graph and ``folded_edge_stage``.
 
 ``build_inference_fn(spec, variables)`` returns a jittable function with
 the exact eval-mode semantics of ``AlignNet.apply(train=False)`` —
@@ -21,16 +21,61 @@ parity-tested in tests/test_serving.py.
 from __future__ import annotations
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 
 from alignnet3d_tpu.models.alignnet import ModelSpec
+from alignnet3d_tpu.models.backbones import BACKBONE_NAMES
 from alignnet3d_tpu.ops.angle_codec import logits_to_angle
-from alignnet3d_tpu.ops.pointnet_kernels import fused_pointnet
+from alignnet3d_tpu.ops.knn import gather_rows, knn, pairwise_distance
 from alignnet3d_tpu.ops.quant import fused_pointnet_int8, quantize_weights_int8
 from alignnet3d_tpu.ops.transforms import rotate_points_z
 
 BN_EPS = 1e-3
+
+
+def fused_pointnet_xla(points, weights, biases, compute_dtype=jnp.bfloat16):
+    """Folded PointNet backbone: relu-dense chain + max over points.
+
+    points: (B, N, C); weights[i]: (C_i, C_{i+1}); biases[i]: (C_{i+1},).
+    Operands in ``compute_dtype``, float32 accumulation. Returns
+    (B, F_last) float32.
+    """
+    h = points.astype(compute_dtype)
+    for w, b in zip(weights, biases):
+        h = jnp.dot(h, w.astype(compute_dtype),
+                    preferred_element_type=jnp.float32)
+        h = jnp.maximum(h + b.astype(jnp.float32), 0.0)
+        h = h.astype(compute_dtype)
+    return jnp.max(h.astype(jnp.float32), axis=1)
+
+
+def folded_edge_stage(points, nn_idx, w1, b1, w2, b2,
+                      compute_dtype=jnp.bfloat16):
+    """Folded DGCNN edge stage: (B, N, C) x (B, N, k) -> (B, N, C2) f32.
+
+    Equal to
+        e = get_edge_feature(points, nn_idx)          # (B, N, k, 2C)
+        h = relu(e @ w1 + b1); h = relu(h @ w2 + b2)
+        return h.max(axis=2)
+    with w1 of shape (2C, C1) and BN folded into (w, b). The first conv
+    is split like the training graph (models/backbones.py): with
+    w1 = [P; Q], ``e_ij @ w1 = x_i (P - Q) + x_j Q = U_i + V_j``, so only
+    the rows of V are gathered and the (B, N, k, 2C) edge tensor never
+    exists.
+    """
+    c = points.shape[-1]
+    assert w1.shape[0] == 2 * c, (w1.shape, c)
+    x = points.astype(compute_dtype)
+    p_w, q_w = w1[:c], w1[c:]
+    u = jnp.dot(x, (p_w - q_w).astype(compute_dtype),
+                preferred_element_type=jnp.float32) + b1
+    v = jnp.dot(x, q_w.astype(compute_dtype),
+                preferred_element_type=jnp.float32)
+    h = jnp.maximum(u[:, :, None, :] + gather_rows(v, nn_idx), 0.0)
+    h = jnp.dot(h.astype(compute_dtype), w2.astype(compute_dtype),
+                preferred_element_type=jnp.float32)
+    h = jnp.maximum(h + b2, 0.0)
+    return jnp.max(h, axis=2)
 
 
 def _fold_dense_bn(dense, bn_params, bn_stats):
@@ -85,12 +130,12 @@ class _FoldedMLPHead:
 
 
 class _FoldedDGCNN:
-    """Folded DGCNN backbone: exact-kNN graph + the fused gather-free
-    edge-conv Pallas stage (ops/edge_conv_kernels.py) + final dense/max.
+    """Folded DGCNN backbone: exact-kNN graph + ``folded_edge_stage`` +
+    final dense/max.
 
     The reference's 3-layer DGCNN shape (tp8.py:30-46: two edge convs,
     max over neighbors, one point conv, max over points) is the only one
-    any config uses; other depths fall back to the flax module.
+    any config uses.
     """
 
     def __init__(self, params, stats, n_layers: int, k: int = 20):
@@ -100,22 +145,11 @@ class _FoldedDGCNN:
         self.k = k
 
     def __call__(self, points, compute_dtype):
-        from alignnet3d_tpu.ops.edge_conv_kernels import fused_edge_stage
-        from alignnet3d_tpu.ops.knn import knn, pairwise_distance
-
+        # the graph is built in f32 like the training backbone's
         xg = points.astype(jnp.float32)
-        kk = min(self.k, points.shape[1])
-        if jax.default_backend() == "tpu":
-            # fused exact kNN — same default as the training backbone
-            # (models/backbones.py knn_impl; on-chip record in
-            # docs/onchip_smoke.json)
-            from alignnet3d_tpu.ops.knn_kernels import knn_points_pallas
-
-            nn_idx = knn_points_pallas(xg, kk)
-        else:
-            nn_idx = knn(pairwise_distance(xg), kk)
-        h = fused_edge_stage(points, nn_idx, self.w1, self.b1,
-                             self.w2, self.b2)          # (B, N, C2)
+        nn_idx = knn(pairwise_distance(xg), min(self.k, points.shape[1]))
+        h = folded_edge_stage(points, nn_idx, self.w1, self.b1,
+                              self.w2, self.b2, compute_dtype)
         h = h.astype(compute_dtype)
         h = jnp.dot(h, self.w3.astype(compute_dtype),
                     preferred_element_type=jnp.float32)
@@ -127,41 +161,38 @@ class _FoldedTransformer:
     def __init__(self, params, stats, n_backbone: int, n_mlp: int,
                  int8: bool = False, backbone: str = "pointnet"):
         self.backbone = backbone
+        name = BACKBONE_NAMES[backbone]
         if backbone == "dgcnn":
             assert not int8, "int8 serving is pointnet-only"
-            self.dgcnn = _FoldedDGCNN(
-                params["DGCNNBackbone_0"], stats["DGCNNBackbone_0"],
-                n_backbone)
+            self.dgcnn = _FoldedDGCNN(params[name], stats[name], n_backbone)
             self.bb_q = None
         else:
-            bp = params["PointNetBackbone_0"]
-            bs = stats["PointNetBackbone_0"]
+            bp = params[name]
+            bs = stats[name]
             self.bb_w, self.bb_b = _fold_chain(bp, bs, "conv", n_backbone)
             self.bb_q = quantize_weights_int8(self.bb_w) if int8 else None
         self.head = _FoldedMLPHead(
             params["MLPHead_0"], stats["MLPHead_0"], n_mlp
         )
 
-    def __call__(self, points, use_pallas, compute_dtype):
+    def __call__(self, points, compute_dtype):
         if self.backbone == "dgcnn":
             feat = self.dgcnn(points, compute_dtype)
         elif self.bb_q is not None:
             feat = fused_pointnet_int8(points, self.bb_q, self.bb_b)
         else:
-            feat = fused_pointnet(points, self.bb_w, self.bb_b,
-                                  use_pallas=use_pallas,
-                                  compute_dtype=compute_dtype)
+            feat = fused_pointnet_xla(points, self.bb_w, self.bb_b,
+                                      compute_dtype=compute_dtype)
         return self.head(feat, compute_dtype)
 
 
-def build_inference_fn(spec: ModelSpec, variables, use_pallas: bool = False,
+def build_inference_fn(spec: ModelSpec, variables,
                        compute_dtype=jnp.bfloat16,
                        quantize: str | None = None):
     """Return ``fn(pcs1, pcs2) -> end_points`` with folded weights.
 
-    pointnet folds into relu-dense chains (fused_pointnet); dgcnn folds
-    into exact-kNN + the gather-free fused edge-conv stage
-    (ops/edge_conv_kernels.py) + a final dense/max.
+    pointnet folds into relu-dense chains (fused_pointnet_xla); dgcnn
+    folds into exact-kNN + ``folded_edge_stage`` + a final dense/max.
 
     ``quantize`` (framework addition, default off = exact eval-mode
     semantics): 'embedding' runs the fat embedding chain in dynamic
@@ -189,16 +220,14 @@ def build_inference_fn(spec: ModelSpec, variables, use_pallas: bool = False,
         len(spec.s2_backbone), len(spec.s2_mlp), int8=int8_bb,
         backbone=spec.backbone,
     )
+    name = BACKBONE_NAMES[spec.backbone]
     if dgcnn:
-        emb_dgcnn = _FoldedDGCNN(
-            enc_p["DGCNNBackbone_0"], enc_s["DGCNNBackbone_0"],
-            len(spec.embedding))
+        emb_dgcnn = _FoldedDGCNN(enc_p[name], enc_s[name],
+                                 len(spec.embedding))
         emb_q = None
     else:
-        emb_w, emb_b = _fold_chain(
-            enc_p["PointNetBackbone_0"], enc_s["PointNetBackbone_0"],
-            "conv", len(spec.embedding),
-        )
+        emb_w, emb_b = _fold_chain(enc_p[name], enc_s[name], "conv",
+                                   len(spec.embedding))
         emb_q = quantize_weights_int8(emb_w) if quantize is not None else None
     remaining = _FoldedMLPHead(
         params["remaining"], stats["remaining"], len(spec.remaining_mlp)
@@ -208,11 +237,9 @@ def build_inference_fn(spec: ModelSpec, variables, use_pallas: bool = False,
 
     def encode(points):
         center_mean = jnp.mean(points, axis=1)
-        s1_delta = t1(points - center_mean[:, None, :], use_pallas,
-                      compute_dtype)
+        s1_delta = t1(points - center_mean[:, None, :], compute_dtype)
         s1_center = s1_delta[:, :3] + center_mean
-        s2_out = t2(points - s1_center[:, None, :], use_pallas,
-                    compute_dtype)
+        s2_out = t2(points - s1_center[:, None, :], compute_dtype)
         s2_center = s2_out[:, :3] + s1_center
         s2_logits = s2_out[:, 3:]
         s2_angles = logits_to_angle(s2_logits, spec.num_bins, residual_scale)
@@ -224,9 +251,8 @@ def build_inference_fn(spec: ModelSpec, variables, use_pallas: bool = False,
         elif emb_q is not None:
             emb = fused_pointnet_int8(normalized, emb_q, emb_b)
         else:
-            emb = fused_pointnet(normalized, emb_w, emb_b,
-                                 use_pallas=use_pallas,
-                                 compute_dtype=compute_dtype)
+            emb = fused_pointnet_xla(normalized, emb_w, emb_b,
+                                     compute_dtype=compute_dtype)
         return emb, s1_center, s2_center, s2_logits
 
     def forward(pcs1, pcs2):

@@ -24,6 +24,6 @@ def resolve_run_checkpoint(cfg_path: str, epoch) -> tuple[str, str | None]:
     if os.path.isdir(cfg_path):
         cfg_path = os.path.join(cfg_path, "config.json")
     ckpt_dir = os.path.dirname(os.path.abspath(cfg_path))
-    if not os.path.exists(os.path.join(ckpt_dir, f"model-{epoch}.msgpack")):
+    if not os.path.exists(os.path.join(ckpt_dir, f"model-{epoch}.npz")):
         ckpt_dir = None
     return cfg_path, ckpt_dir

@@ -194,7 +194,7 @@ def export_html_scene(
     per-layer visibility toggles, the pair plus predicted/GT overlays as
     colored point layers. Implemented as one standalone HTML file with an
     inline WebGL renderer — no notebook kernel, no external JS, viewable
-    in any browser (the TPU-pod-friendly analogue of a live widget:
+    in any browser (the headless-server analogue of a live widget:
     artifacts are produced headless on the host and inspected anywhere).
 
     ``extra_layers``: optional list of (name, (M,3) array) appended as

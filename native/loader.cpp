@@ -1,6 +1,6 @@
 // Native batch assembler for the packed point-cloud dataset.
 //
-// TPU-native replacement for the reference's host-bound input path
+// Native replacement for the reference's host-bound input path
 // (reference provider.py:85-136 does per-sample JSON+npy reads and a
 // numpy random resample inside the training loop). Here the dataset is
 // already packed into flat ragged arrays (alignnet3d_tpu/data/provider.py);

@@ -1,7 +1,7 @@
 #!/bin/bash
 # Generate SynthCarsHard (8k train + 2k val, hard=True: occlusion /
 # truncation / clutter) once the main regen finishes — runs OUTSIDE the
-# serialized TPU queue because it is pure-CPU work; the queue's
+# serialized queue because it is pure-CPU work; the queue's
 # eval_variants step waits on the marker this writes.
 set -u
 cd "$(dirname "$0")/.."

@@ -67,7 +67,7 @@ def main():
     state = trainer.init_state()
     state = trainer.restore_checkpoint(
         state,
-        os.path.join(ckpt_dir or trainer.logdir, f"model-{epoch}.msgpack"),
+        os.path.join(ckpt_dir or trainer.logdir, f"model-{epoch}.npz"),
     )
     eval_fn = trainer._get_jitted("eval")
     refine_state = state
@@ -76,7 +76,7 @@ def main():
         assert rdir is not None, f"no model-{refiner[1]} next to {rpath}"
         refine_state = trainer.restore_checkpoint(
             trainer.init_state(),
-            os.path.join(rdir, f"model-{refiner[1]}.msgpack"),
+            os.path.join(rdir, f"model-{refiner[1]}.npz"),
         )
         print(f"refiner: {rdir} epoch {refiner[1]}", flush=True)
 

@@ -38,7 +38,7 @@ def main():
     state = trainer.init_state()
     state = trainer.restore_checkpoint(
         state,
-        os.path.join(ckpt_dir or trainer.logdir, f"model-{epoch}.msgpack"),
+        os.path.join(ckpt_dir or trainer.logdir, f"model-{epoch}.npz"),
     )
     eval_fn = trainer._get_jitted("eval")
 

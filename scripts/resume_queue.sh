@@ -1,5 +1,5 @@
 #!/bin/bash
-# Replay the serialized TPU queue after a kill/reboot/round-end bench.
+# Replay the serialized experiment queue after a kill or reboot.
 # Safe to run at every session start: completed steps skip via markers.
 set -u
 cd "$(dirname "$0")/.."

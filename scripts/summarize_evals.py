@@ -4,7 +4,7 @@
 Scans /root/data/runs/<run>/val/eval*/ (and refined_* subdirs) for
 eval_180.json and prints one row per eval dir: run, epoch, variant,
 corr_levels (<2/<10/<20 cm), mean translation / yaw. Pure host-side
-file reading — safe to run any time (no TPU client).
+file reading — safe to run any time (no device client).
 
 Usage: python scripts/summarize_evals.py [run-name-substring ...]
 """

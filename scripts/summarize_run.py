@@ -4,7 +4,7 @@ Reads ``<run>/val/eval%06d/eval[_180].json`` artifacts (the reference's
 nested schema, reference evaluation.py:230-286) and prints overall /
 translation / angle levels per epoch plus the best epochs by <20 cm and
 <10 cm overall, with the val/test sub-splits for the pick. Pure host
-tool — safe to run while training holds the TPU.
+tool — safe to run while training holds the device.
 
 Usage: python scripts/summarize_run.py <run_dir> [--eval180] [--last K]
 """

@@ -1,4 +1,4 @@
-"""Post-hoc refinement-gate threshold sweep on cached artifacts (no TPU).
+"""Post-hoc refinement-gate threshold sweep on cached artifacts (no device).
 
 Because the in-loop gate (icp/p2point.py:291-309) falls back to the
 NETWORK prediction for rejected pairs, any TIGHTER (max_dyaw_deg,

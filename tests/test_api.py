@@ -40,7 +40,7 @@ def trained(tmp_path_factory):
 
     main(["train", "--config", cfg_path])
     logdir = root / "runs" / "Api"
-    return str(logdir / "config.json"), str(logdir / "model-0.msgpack"), base
+    return str(logdir / "config.json"), str(logdir / "model-0.npz"), base
 
 
 def test_align_contract(trained, rng):

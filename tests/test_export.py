@@ -6,6 +6,7 @@ import numpy as np
 from alignnet3d_tpu.export import (
     OUTPUT_KEYS,
     export_alignment_model,
+    export_forward,
     load_exported,
 )
 from alignnet3d_tpu.serving import build_inference_fn
@@ -45,3 +46,20 @@ def test_export_from_bytes_without_model_code():
     out = infer(a, a)
     assert out["pred_translations"].shape == (2, 3)
     assert out["pred_remaining_angle_logits"].shape == (2, 2 * SPEC.num_bins)
+
+
+def test_export_forward_in_memory_matches_folded_serving():
+    """The unserialized ``Exported`` (no flatbuffers needed) runs through
+    ``load_exported`` like the bytes do."""
+    _, variables = _trained_variables()
+    infer = load_exported(export_forward(SPEC, variables,
+                                         compute_dtype=jnp.float32))
+    serve = build_inference_fn(SPEC, variables, compute_dtype=jnp.float32)
+    rng = np.random.default_rng(4)
+    a = rng.normal(size=(5, SPEC.num_points, 3)).astype(np.float32)
+    b = rng.normal(size=(5, SPEC.num_points, 3)).astype(np.float32)
+    ref = serve(jnp.asarray(a), jnp.asarray(b))
+    got = infer(a, b)
+    for key in OUTPUT_KEYS:
+        np.testing.assert_allclose(np.asarray(ref[key]), np.asarray(got[key]),
+                                   rtol=1e-5, atol=1e-5, err_msg=key)

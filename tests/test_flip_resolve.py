@@ -53,3 +53,31 @@ def test_no_flip_on_correct_predictions(rng):
     )
     assert not flip[0]
     assert abs(corrected[0] - 0.4) < 1e-6
+
+
+def test_chamfer_scores_precise_far_from_origin(rng):
+    """Clouds 19 m out: the expanded |a|^2 - 2ab + |b|^2 distance would
+    cancel most of float32's digits (|a|^2 = 361 m^2); the scores must
+    still match a float64 chamfer."""
+    import jax.numpy as jnp
+
+    from alignnet3d_tpu.ops.flip_resolve import resolve_flips
+
+    b = 4
+    pcs1 = np.stack([_asym_cloud(rng, 512) for _ in range(b)])
+    pcs1 += np.array([18.0, 5.0, -1.5], np.float32)
+    pcs2 = pcs1 + rng.normal(0, 0.02, pcs1.shape).astype(np.float32)
+    t = np.zeros((b, 3), np.float32)
+    ang = rng.normal(0, 0.05, b).astype(np.float32)
+    c = pcs1.mean(axis=1)
+    _, d, _ = resolve_flips(jnp.asarray(pcs1), jnp.asarray(pcs2),
+                            jnp.asarray(t), jnp.asarray(ang), jnp.asarray(c))
+    p1 = pcs1.astype(np.float64) - c[:, None]
+    cs, sn = np.cos(ang.astype(np.float64)), np.sin(ang.astype(np.float64))
+    moved = np.stack([cs[:, None] * p1[..., 0] - sn[:, None] * p1[..., 1],
+                      sn[:, None] * p1[..., 0] + cs[:, None] * p1[..., 1],
+                      p1[..., 2]], -1) + c[:, None]
+    want = [np.mean(np.sqrt(np.min(np.sum(
+        (m[:, None] - q[None].astype(np.float64)) ** 2, -1), 1)))
+        for m, q in zip(moved, pcs2)]
+    np.testing.assert_allclose(np.asarray(d), want, rtol=2e-5)

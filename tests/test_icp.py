@@ -214,3 +214,78 @@ def test_gated_refinement_trust_region(rng):
         assert np.linalg.norm(
             gated["translations"][i, :2] - pred_t[i, :2]
         ) <= 0.5 + 1e-6
+
+
+def _nn_reference(src, dst, mask):
+    """float64 brute-force nearest valid dst point per src point."""
+    s = np.asarray(src, np.float64)
+    d = np.asarray(dst, np.float64)
+    d2 = np.sum((s[:, None, :] - d[None, :, :]) ** 2, axis=-1)
+    d2[:, ~np.asarray(mask)] = np.inf
+    idx = np.argmin(d2, axis=1)
+    return idx, d2[np.arange(len(s)), idx], d2
+
+
+def _assert_nn_matches(src, dst, mask, idx, d2, eps=1e-5):
+    """Indices equal the float64 reference except on near ties (the two
+    candidates' squared distances within ``eps`` of the cloud's scale)."""
+    ri, rd, full = _nn_reference(src, dst, mask)
+    idx = np.asarray(idx)
+    scale = 1.0 + np.max(np.sum(np.asarray(dst, np.float64) ** 2, -1))
+    off = idx != ri
+    if off.any():
+        gap = np.abs(full[np.arange(len(idx)), idx] - rd) / scale
+        assert np.all(gap[off] <= eps), float(gap[off].max())
+    np.testing.assert_allclose(np.asarray(d2), rd, rtol=1e-4, atol=1e-5)
+
+
+def test_nn_correspondences_match_f64(rng):
+    """Chunked NN search (icp/p2point.py) against float64 brute force,
+    with src lengths below, at and above the chunk size and padded dst."""
+    import jax.numpy as jnp
+
+    from alignnet3d_tpu.icp.p2point import _nn_correspondences
+
+    for n1, n2, nv in [(16, 40, 33), (130, 700, 650), (1025, 1300, 1300)]:
+        src = rng.normal(size=(n1, 3)).astype(np.float32)
+        dst = rng.normal(size=(n2, 3)).astype(np.float32)
+        mask = np.zeros(n2, bool)
+        mask[:nv] = True
+        i, d = _nn_correspondences(
+            jnp.asarray(src), jnp.asarray(dst), jnp.asarray(mask))
+        assert i.shape == (n1,) and d.shape == (n1,)
+        _assert_nn_matches(src, dst, mask, i, d)
+
+
+def test_nn_correspondences_vmap_over_pairs(rng):
+    import jax
+    import jax.numpy as jnp
+
+    from alignnet3d_tpu.icp.p2point import _nn_correspondences
+
+    src = rng.normal(size=(3, 256, 3)).astype(np.float32)
+    dst = rng.normal(size=(3, 256, 3)).astype(np.float32)
+    mask = np.ones((3, 256), bool)
+    i, d = jax.vmap(_nn_correspondences)(
+        jnp.asarray(src), jnp.asarray(dst), jnp.asarray(mask))
+    for b in range(3):
+        _assert_nn_matches(src[b], dst[b], mask[b], i[b], d[b])
+
+
+def test_icp_scores_precise_far_from_origin(rng):
+    """A pair 19 m out: the init's inlier RMSE (a 0-iteration pass, what
+    the refinement gate compares) matches float64 — the distances are
+    taken about the pair's centroid, not the sensor origin."""
+    src = _box_cloud(rng, n=600).astype(np.float32)
+    src += np.array([17.0, 8.0, -1.0], np.float32)
+    dst = (src + rng.normal(0, 0.01, src.shape)).astype(np.float32)
+    init = np.eye(4)[None]
+    _, fit, rmse = icp_p2point_batch(src[None], np.ones((1, 600), bool),
+                                     dst[None], np.ones((1, 600), bool),
+                                     init, radius=0.1, its=0)
+    d2 = np.sum((src[:, None].astype(np.float64) - dst[None]) ** 2, -1)
+    nearest = d2.min(axis=1)
+    inl = nearest < 0.01
+    assert float(fit[0]) == pytest.approx(inl.mean())
+    assert float(rmse[0]) == pytest.approx(np.sqrt(nearest[inl].mean()),
+                                           rel=1e-4)

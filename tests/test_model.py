@@ -484,7 +484,7 @@ def test_dgcnn_edge_linear_split_parity():
     x = jnp.asarray(rng.normal(size=(2, 40, 3)), jnp.float32)
     layers = (16, 24, 32)
     k = 5
-    backbone = DGCNNBackbone(layer_sizes=layers, k=k, knn_impl="xla")
+    backbone = DGCNNBackbone(layer_sizes=layers, k=k)
     variables = backbone.init(
         {"params": jax.random.PRNGKey(0)}, x, train=True, momentum=0.9)
     params = variables["params"]

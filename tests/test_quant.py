@@ -6,13 +6,12 @@ import numpy as np
 import pytest
 
 from alignnet3d_tpu.models.alignnet import AlignNet, ModelSpec
-from alignnet3d_tpu.ops.pointnet_kernels import fused_pointnet_xla
 from alignnet3d_tpu.ops.quant import (
     _dense_int8,
     fused_pointnet_int8,
     quantize_weights_int8,
 )
-from alignnet3d_tpu.serving import build_inference_fn
+from alignnet3d_tpu.serving import build_inference_fn, fused_pointnet_xla
 
 B, N = 4, 64
 

@@ -13,7 +13,7 @@ def test_resolve_run_dir_with_checkpoint(tmp_path):
     run = tmp_path / "run"
     run.mkdir()
     (run / "config.json").write_text(json.dumps({}))
-    (run / "model-5.msgpack").write_bytes(b"x")
+    (run / "model-5.npz").write_bytes(b"x")
     cfg, ckpt = resolve_run_checkpoint(str(run), 5)
     assert cfg == str(run / "config.json")
     assert ckpt == str(run)

@@ -1,5 +1,5 @@
-"""Serving-path parity: BN-folded inference == flax eval forward; pallas
-kernel (interpret mode) == XLA reference."""
+"""Serving-path parity: BN-folded inference == the model's eval forward;
+the folded DGCNN edge stage == the edge-tensor graph."""
 
 import jax
 import jax.numpy as jnp
@@ -7,11 +7,8 @@ import numpy as np
 import pytest
 
 from alignnet3d_tpu.models.alignnet import AlignNet, ModelSpec
-from alignnet3d_tpu.ops.pointnet_kernels import (
-    fused_pointnet_pallas,
-    fused_pointnet_xla,
-)
-from alignnet3d_tpu.serving import build_inference_fn
+from alignnet3d_tpu.ops.knn import get_edge_feature, knn, pairwise_distance
+from alignnet3d_tpu.serving import build_inference_fn, folded_edge_stage
 
 SPEC = ModelSpec(
     num_points=128, num_bins=8,
@@ -50,8 +47,7 @@ def test_folded_serving_matches_flax_eval():
     b = jnp.asarray(rng.normal(size=(8, SPEC.num_points, 3)), jnp.float32)
     ref = model.apply(variables, a, b, train=False)
     # float32 serving path for a tight comparison
-    serve = build_inference_fn(SPEC, variables, use_pallas=False,
-                               compute_dtype=jnp.float32)
+    serve = build_inference_fn(SPEC, variables, compute_dtype=jnp.float32)
     got = serve(a, b)
     for key in ref:
         np.testing.assert_allclose(
@@ -66,8 +62,7 @@ def test_folded_serving_bf16_close():
     a = jnp.asarray(rng.normal(size=(8, SPEC.num_points, 3)), jnp.float32)
     b = jnp.asarray(rng.normal(size=(8, SPEC.num_points, 3)), jnp.float32)
     ref = model.apply(variables, a, b, train=False)
-    serve = build_inference_fn(SPEC, variables, use_pallas=False,
-                               compute_dtype=jnp.bfloat16)
+    serve = build_inference_fn(SPEC, variables, compute_dtype=jnp.bfloat16)
     got = serve(a, b)
     # bf16 through the stacked stages costs several cm on an untrained net
     # with unit-gaussian inputs — which is why f32 is the accuracy-parity
@@ -78,49 +73,36 @@ def test_folded_serving_bf16_close():
     )
 
 
-def test_pallas_kernel_matches_xla_interpret():
-    rng = np.random.default_rng(3)
-    b, n = 8, 128
-    points = jnp.asarray(rng.normal(size=(b, n, 3)), jnp.float32)
-    dims = [3, 16, 32, 64]
-    weights = tuple(
-        jnp.asarray(rng.normal(size=(dims[i], dims[i + 1])) * 0.3, jnp.float32)
-        for i in range(3)
-    )
-    biases = tuple(
-        jnp.asarray(rng.normal(size=(dims[i + 1],)) * 0.1, jnp.float32)
-        for i in range(3)
-    )
-    ref = fused_pointnet_xla(points, weights, biases,
-                             compute_dtype=jnp.float32)
-    got = fused_pointnet_pallas(points, weights, biases, tb=4, tn=32,
-                                compute_dtype=jnp.float32, interpret=True)
-    np.testing.assert_allclose(np.asarray(ref), np.asarray(got),
-                               rtol=1e-5, atol=1e-5)
+def _edge_reference(points, nn_idx, w1, b1, w2, b2):
+    """The (B, N, k, 2C) edge tensor through two dense layers, max over k
+    (reference tf_util_dgcnn.py:674-706 + tp8.py:30-46)."""
+    e = get_edge_feature(points, nn_idx)
+    hi = jax.lax.Precision.HIGHEST
+    h = jnp.maximum(jnp.matmul(e, w1, precision=hi) + b1, 0.0)
+    h = jnp.maximum(jnp.matmul(h, w2, precision=hi) + b2, 0.0)
+    return jnp.max(h, axis=2)
 
 
-def test_pallas_kernel_max_accumulation_across_chunks():
-    """Output must equal the max over ALL point chunks, not just the last."""
-    rng = np.random.default_rng(4)
-    b, n = 2, 64
-    points = np.zeros((b, n, 3), np.float32)
-    points[:, :, :] = rng.normal(size=(b, n, 3))
-    # plant an extreme point in the FIRST chunk
-    points[0, 3] = [10.0, 10.0, 10.0]
-    pts = jnp.asarray(points)
-    w = (jnp.eye(3, dtype=jnp.float32),)
-    bias = (jnp.zeros((3,), jnp.float32),)
-    got = fused_pointnet_pallas(pts, w, bias, tb=2, tn=16,
-                                compute_dtype=jnp.float32, interpret=True)
-    ref = fused_pointnet_xla(pts, w, bias, compute_dtype=jnp.float32)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=1e-6)
-    assert np.asarray(got)[0, 0] == pytest.approx(10.0)
+@pytest.mark.parametrize("b,n,k,c2", [(2, 128, 8, 128), (1, 200, 20, 128),
+                                      (3, 256, 5, 128), (2, 160, 10, 256)])
+def test_folded_edge_stage_matches_edge_graph(b, n, k, c2):
+    rng = np.random.default_rng(n)
+    pts = jnp.asarray(rng.normal(size=(b, n, 3)), jnp.float32)
+    idx = knn(pairwise_distance(pts), k)
+    w1 = jnp.asarray(rng.normal(size=(6, 64)) / 2.0, jnp.float32)
+    b1 = jnp.asarray(rng.normal(size=(64,)) * 0.1, jnp.float32)
+    w2 = jnp.asarray(rng.normal(size=(64, c2)) / 8.0, jnp.float32)
+    b2 = jnp.asarray(rng.normal(size=(c2,)) * 0.1, jnp.float32)
+    want = np.asarray(_edge_reference(pts, idx, w1, b1, w2, b2))
+    got = np.asarray(folded_edge_stage(pts, idx, w1, b1, w2, b2,
+                                       compute_dtype=jnp.float32))
+    assert got.shape == (b, n, c2)
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.slow
 def test_folded_dgcnn_serving_matches_flax_eval():
-    """Folded DGCNN path (fused gather-free edge-conv stage) vs
-    model.apply eval mode. 3-layer backbones per the reference shape
+    """Folded DGCNN path (folded_edge_stage) vs model.apply eval mode. 3-layer backbones per the reference shape
     (tp8.py:30-46)."""
     spec = ModelSpec(
         num_points=96, num_bins=8, backbone="dgcnn",

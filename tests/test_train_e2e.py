@@ -52,9 +52,9 @@ def test_train_produces_artifacts(workspace):
     root, cfg_path, base = workspace
     _run(cfg_path, "train")
     logdir = root / "runs" / "E2E"
-    assert (logdir / "model.ckpt.msgpack").is_file()
-    assert (logdir / "model-0.msgpack").is_file()
-    assert (logdir / "model-1.msgpack").is_file()
+    assert (logdir / "model.ckpt.npz").is_file()
+    assert (logdir / "model-0.npz").is_file()
+    assert (logdir / "model-1.npz").is_file()
     assert (logdir / "config.json").is_file()
     assert (logdir / "out.log").is_file()
     eval_dir = logdir / "val" / "eval000001"
@@ -96,7 +96,7 @@ def test_resume_continues_from_checkpoint(workspace, caplog):
         _run(cfg_path, "train")
     assert any("Continuing training at epoch 2" in r.message
                for r in caplog.records)
-    assert (root / "runs" / "E2E" / "model-2.msgpack").is_file()
+    assert (root / "runs" / "E2E" / "model-2.npz").is_file()
 
 
 # depends on test_train_produces_artifacts' run dir -> same lane
@@ -133,7 +133,7 @@ def test_pretraining_restore_runs_initial_eval(workspace, caplog):
     assert (root / "runs" / "Pre" / "val" / "eval00pretr").is_dir() or (
         root / "runs" / "Pre" / "val" / "eval0pretr"
     ).is_dir()
-    assert (root / "runs" / "Pre" / "model-0.msgpack").is_file()
+    assert (root / "runs" / "Pre" / "model-0.npz").is_file()
 
 
 # depends on test_train_produces_artifacts' run dir -> same lane
@@ -183,7 +183,7 @@ def test_checkpoint_roundtrip_preserves_predictions(workspace):
     trainer = Trainer(cfg, seed=0)
     state = trainer.init_state()
     state = trainer.restore_checkpoint(
-        state, str(root / "runs" / "E2E" / "model-2.msgpack")
+        state, str(root / "runs" / "E2E" / "model-2.npz")
     )
     import jax
 
